@@ -1,10 +1,10 @@
 // Golden-model permutohedral lattice filter (CPU, C++).
 //
-// An independent implementation of the same mathematics as the JAX/TPU
+// An independent implementation of the same mathematics as the JAX/XLA
 // pipeline (simplex_gp_tpu/ops/lattice.py), used as the cross-backend
 // differential-test oracle -- the role the reference's CPU extension plays
 // against its CUDA backend (reference experiments/cuda_test.py).  The
-// structure is deliberately different from both the TPU path (no sort-based
+// structure is deliberately different from both the JAX path (no sort-based
 // dedup) and the reference C++ (no open-addressing table or replay buffer):
 // a std::unordered_map from packed lattice keys to value accumulators, and
 // explicit neighbor-key lookups during the blur.

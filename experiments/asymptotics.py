@@ -3,7 +3,7 @@
 The reference validates the claimed O(n d^2 + n L) filter complexity with
 log-log regressions in notebooks/asymptotics.ipynb (SURVEY.md section 6:
 "MVM & gradient ~ linear in n; low-order polynomial in d").  This script
-reproduces that measurement for the TPU filter and prints the fitted
+reproduces that measurement for this filter and prints the fitted
 exponents as JSON.
 
     python experiments/asymptotics.py --order 1
@@ -37,19 +37,18 @@ def main():
 
     from simplex_gp_tpu.ops import kernels as K
     from simplex_gp_tpu.ops.lattice import filter_once
-    from simplex_gp_tpu.utils.timing import sync_floor, sync_time
+    from simplex_gp_tpu.utils.timing import time_call
 
     import jax
 
     dk = K.rbf_kernel(args.order)
     rng = np.random.default_rng(0)
-    floor = sync_floor()
 
     def time_filter(n, d):
         x = jnp.asarray(rng.normal(size=(n, d)).astype(np.float32))
         v = jnp.asarray(rng.normal(size=(n, 1)).astype(np.float32))
         f = jax.jit(lambda vv, xx: filter_once(vv, xx, dk.coeffs, dk.variance))
-        return max(sync_time(f, v, x, reps=args.reps) - floor, 1e-6)
+        return time_call(f, v, x, reps=args.reps)
 
     t_n = [time_filter(n, args.fixed_d) for n in args.ns]
     t_d = [time_filter(args.fixed_n, d) for d in args.ds]

@@ -67,12 +67,10 @@ def main():
         count_lattice_points,
         filter_once,
     )
-    from simplex_gp_tpu.utils.timing import sync_floor, sync_time, warmup_device
+    from simplex_gp_tpu.utils.timing import time_call
 
-    warmup_device()
     dk = K.rbf_kernel(args.order)
     apply_only = jax.jit(lambda p, vv: apply_plan(p, vv, dk.coeffs))
-    floor = sync_floor()
 
     # Above this worst-case table size, measure the true occupancy once and
     # trim the plan capacity (houseelectric's M = 24.6M rows is ~4x the
@@ -106,8 +104,8 @@ def main():
             plan = build_plan(x, dk.coeffs, dk.variance, capacity=capacity)
             n_lat = int(plan.n_lattice)
             assert capacity is None or n_lat <= capacity, (n_lat, capacity)
-            t_full = max(sync_time(full, v, x, reps=args.reps) - floor, 1e-9)
-            t_apply = max(sync_time(apply_only, plan, v, reps=args.reps) - floor, 1e-9)
+            t_full = time_call(full, v, x, reps=args.reps)
+            t_apply = time_call(apply_only, plan, v, reps=args.reps)
         except Exception as e:  # noqa: BLE001 -- report OOM/compile failures per-row
             print(json.dumps({"dataset": name, "n": n, "d": d, "error": repr(e)[:200]}), flush=True)
             continue
@@ -126,8 +124,7 @@ def main():
                     "ref_exact_ms": ref_exact * 1e3,
                     "vs_ref_simplex_full": round(ref_simplex / t_full, 3),
                     "vs_ref_simplex_apply": round(ref_simplex / t_apply, 3),
-                    "sync_floor_ms": round(floor * 1e3, 3),
-                    "device": str(jax.devices()[0]),
+                    "device": jax.devices()[0].device_kind,
                 }
             ),
             flush=True,

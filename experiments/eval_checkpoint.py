@@ -7,7 +7,7 @@ Mirrors the reference's test() pass (train_simplexgp.py:60-84: cached train
 solves under fast_pred_var, eval CG tolerance 1e-2).
 
 Usage:
-  python experiments/eval_checkpoint.py --run-dir runs/r4/simplexgp_houseelectric_s0 \
+  python experiments/eval_checkpoint.py --run-dir runs/simplexgp_houseelectric_s0 \
       --dataset houseelectric --kernel matern --nu 1.5 [--root-rank 50]
 """
 
@@ -113,10 +113,10 @@ def main():
     for split, xe, ye in (("val", ds.val_x, ds.val_y), ("test", ds.test_x, ds.test_y)):
         t0 = time.perf_counter()
         # Pad the eval block to the next power of two with copies of row 0:
-        # val and test then share ONE compiled predict shape (the per-shape
-        # recompile was the 226/242 s houseelectric eval cost, VERDICT r4
-        # item 7); duplicate positions add no lattice cells, so real rows'
-        # predictions are unchanged.
+        # val and test then share ONE compiled predict shape (a per-shape
+        # recompile dominated the houseelectric eval cost); duplicate
+        # positions add no lattice cells, so real rows' predictions are
+        # unchanged.
         xe = jnp.asarray(xe)
         if keep is not None:
             xe = xe[:, jnp.asarray(keep)]

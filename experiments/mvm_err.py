@@ -23,7 +23,7 @@ if _HERE not in sys.path:
 
 from common import add_common_args, load_dataset  # noqa: E402
 
-from simplex_gp_tpu.utils.timing import sync_time  # noqa: E402
+from simplex_gp_tpu.utils.timing import time_call  # noqa: E402
 
 
 def main():
@@ -73,7 +73,7 @@ def main():
             if c < 0.9 * x_all.shape[0] * (x_all.shape[1] + 1):
                 cap = c
         lat = jax.jit(lambda vv, xx: filter_once(vv, xx, dk.coeffs, dk.variance, cap))
-    t_lattice = sync_time(lat, v, x, reps=args.iters)
+    t_lattice = time_call(lat, v, x, reps=args.iters)
 
     # --- accuracy vs dense on a subset ---
     ns = min(args.max_exact, x_all.shape[0])
@@ -99,11 +99,11 @@ def main():
     @jax.jit
     def dense_mvm(vv):
         d2 = ((xj[:, None, :] - xj[None, :, :]) ** 2).sum(-1)
-        # Exact kernel of the SAME family/nu as the lattice side.
+        # Exact kernel of the SAME family/nu as the lattice side, in full f32.
         Km = K.kernel_value_jnp(dk, d2)
-        return Km @ vv
+        return jnp.matmul(Km, vv, precision=jax.lax.Precision.HIGHEST)
 
-    t_exact = sync_time(dense_mvm, jnp.asarray(vs), reps=args.iters)
+    t_exact = time_call(dense_mvm, jnp.asarray(vs), reps=args.iters)
     exact = np.asarray(dense_mvm(jnp.asarray(vs)))
 
     scale = (lat_s * exact).sum() / (lat_s * lat_s).sum()

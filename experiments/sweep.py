@@ -7,6 +7,10 @@ launches the config's ``program`` as a subprocess with the parameters as CLI
 flags, and the one-line JSON summaries each trainer prints are aggregated
 into ``<out>/sweep_results.jsonl``.
 
+Grid points run one at a time, each in its own process, and this parent
+never imports JAX: a JAX process reserves most of a GPU's memory when it
+first uses it, so only one process may hold the card at a time.
+
 Usage:
     python experiments/sweep.py configs/simplexgp.yml --out runs/sweep_simplexgp
     python experiments/sweep.py configs/mvm_err.yml --dry-run

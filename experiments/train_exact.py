@@ -1,8 +1,8 @@
 """Dense exact-GP trainer CLI (reference baseline: experiments/train_keops.py).
 
-The reference uses KeOps CUDA kernels for the dense MVMs; on TPU the dense
-kernel matrix is plain XLA matmul territory (MXU), so this baseline is a
-Cholesky exact GP.  O(n^2) memory: use --max-n on large datasets.
+The reference uses KeOps CUDA kernels for the dense MVMs; here the dense
+kernel matrix is plain XLA matmul territory, so this baseline is a Cholesky
+exact GP.  O(n^2) memory: use --max-n on large datasets.
 """
 
 import argparse

@@ -20,7 +20,7 @@ if _HERE not in sys.path:
 from common import add_common_args, init_kwargs, load_dataset, run_training  # noqa: E402
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     add_common_args(p)
     p.add_argument(
@@ -45,15 +45,15 @@ def main():
         "drop dims whose inverse lengthscale is below this fraction of the "
         "max (models/exact_gp.py SimplexGP.prune_thresh; 0 disables)",
     )
-    args = p.parse_args()
+    return p
 
+
+def build_model(args, ds):
+    """(model, initial raw params) for the parsed CLI ``args`` on ``ds``."""
     from simplex_gp_tpu import BBMMConfig, SimplexGP
 
-    ds = load_dataset(args)
     plan_capacity = None
     if args.plan_capacity == -1:
-        import numpy as np
-
         from simplex_gp_tpu.ops.kernels import matern_kernel, rbf_kernel
         from simplex_gp_tpu.ops.lattice import count_lattice_points
 
@@ -91,6 +91,13 @@ def main():
         model = model.with_fitted_mixture(raw0, jnp.asarray(ds.train_x))
         print(f"mixture weights (subset fit): "
               f"{[round(w, 4) for w in model.mix_weights]}", flush=True)
+    return model, raw0
+
+
+def main():
+    args = build_parser().parse_args()
+    ds = load_dataset(args)
+    model, raw0 = build_model(args, ds)
     run_training(model, raw0, ds, args, "simplexgp")
 
 

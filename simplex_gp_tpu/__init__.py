@@ -1,10 +1,10 @@
-"""simplex_gp_tpu: a TPU-native scalable Gaussian-process framework.
+"""simplex_gp_tpu: a scalable Gaussian-process framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of
+A JAX/XLA implementation with the capabilities of
 activatedgeek/simplex-gp ("SKIing on Simplices", ICML 2021): O(n d)
 stationary-kernel MVMs via a permutohedral-lattice filter, driving exact-GP
 training (preconditioned CG + stochastic Lanczos log-det) and prediction,
-data-sharded across TPU meshes.
+data-sharded across a device mesh.
 
 Public API parity with the reference package export
 (gpytorch_lattice_kernel/__init__.py): ``RBFLattice`` and ``MaternLattice``

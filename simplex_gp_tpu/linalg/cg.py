@@ -6,9 +6,9 @@ implicit operator, preconditioned, with a loose tolerance during training
 (reference config ``cg_tolerance=1.0``, ``eval_cg_tolerance=1e-2``,
 ``max_cg_iterations=500`` -- configs/simplexgp.yml).
 
-TPU-native formulation: a single ``lax.while_loop`` whose state carries all
+Formulation: a single ``lax.while_loop`` whose state carries all
 right-hand sides at once; the operator is applied to the full (n, t) block so
-every MVM is one fused lattice filter / one big matmul (MXU-friendly), and
+every MVM is one fused lattice filter / one big matmul, and
 inner products reduce over the data axis (a ``psum`` when sharded).
 Converged columns are frozen by masking rather than dropped, keeping shapes
 static for XLA.
@@ -64,7 +64,7 @@ def cg_solve(
       max_iters: static iteration cap.
       precond: optional V -> P^{-1} V.
       axis_name: if set (inside shard_map), rows of b are sharded over that
-        mesh axis: every inner product becomes a psum over ICI, and matmul
+        mesh axis: every inner product becomes a psum, and matmul
         must be the data-sharded operator.  All shards run the identical
         iteration (same scalars after psum), so control flow stays in sync.
       min_iters: iteration FLOOR before the tolerance check may stop a

@@ -4,18 +4,18 @@ The single-graph engine (linalg/mll.py) compiles the WHOLE NLML step -- plan
 build + preconditioner + a CG ``lax.while_loop`` whose body contains ~d+2
 variadic sorts over n*(d+1) rows + the backward filter -- into one XLA
 program.  At houseelectric scale (n = 1.3M, d = 11, 15.7M contribution rows)
-that program is at the edge of what the TPU toolchain handles: we observed
-compile-memory exhaustion, multi-ten-minute compiles, and compile-service
-failures for the fused graph, while each PIECE compiles and runs fine
-(apply: 2.1 s, preconditioner build: seconds).
+that program was at the edge of what the toolchain it was first built on
+handled (compile-memory exhaustion, very long compiles), while each PIECE
+compiled and ran fine.  Whether the fused graph compiles and fits at that
+scale on the H100 is unverified; if it does, this module can go.
 
 This module runs the same algorithm with the LOOP ON THE HOST: one jitted
 CG iteration (plan and preconditioner passed as arguments, so nothing is
 baked into the graph as constants), mean-residual stopping evaluated on the
 host, CG-tridiag SLQ coefficients collected per iteration, and the one-call
 closed-form backward (the same u^T dK_hat v evaluation as the custom VJP in
-linalg/mll.py).  Per-iteration dispatch costs ~30 ms -- negligible against
-multi-second MVMs -- and every compiled piece is small.
+linalg/mll.py).  Each iteration pays one host dispatch, small against
+multi-second MVMs, and every compiled piece is small.
 
 This is the engine behind ``SimplexGP.nlml_value_and_grad_host`` and
 ``posterior_cache_host`` (models/exact_gp.py), selected by the trainer for

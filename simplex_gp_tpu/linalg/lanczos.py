@@ -3,13 +3,13 @@
 The reference obtains log|K| and trace terms through GPyTorch's stochastic
 Lanczos quadrature (SLQ) with a Lanczos budget of
 ``max_root_decomposition_size`` (=100 in configs/simplexgp.yml; SURVEY.md
-section 2.4).  TPU formulation: all probe vectors run their Lanczos
+section 2.4).  Formulation: all probe vectors run their Lanczos
 recurrences simultaneously as one (n, p) block -- every operator application
 is a single fused filter MVM -- inside a ``lax.scan`` of static length; the
 tiny (p, m, m) tridiagonal eigenproblems are solved with batched ``eigh``.
 
-Full reorthogonalization is applied by default (an (n, p, m) tensor dotted on
-the MXU); for the small m used here it costs little and removes the classic
+Full reorthogonalization is applied by default (an (n, p, m) tensor
+contraction); for the small m used here it costs little and removes the classic
 Lanczos ghost-eigenvalue instability in f32.
 """
 
@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 
 __all__ = ["LanczosResult", "lanczos", "slq_logdet", "lanczos_root"]
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 class LanczosResult(NamedTuple):
@@ -62,10 +64,11 @@ def lanczos(
             # one-shot classical Gram-Schmidt amplifies r once the basis
             # loses orthogonality near Krylov exhaustion and the recurrence
             # explodes; the second pass makes it stable.  Each pass is one
-            # (m, p) contraction batched over probes -- MXU work.
+            # (m, p) contraction batched over probes, in full f32: a TF32
+            # contraction would leave the basis far from orthogonal.
             for _ in range(2):
-                coeff = rowsum(jnp.einsum("mnp,np->mp", basis, r))
-                r = r - jnp.einsum("mnp,mp->np", basis, coeff)
+                coeff = rowsum(jnp.einsum("mnp,np->mp", basis, r, precision=_HI))
+                r = r - jnp.einsum("mnp,mp->np", basis, coeff, precision=_HI)
         beta = jnp.sqrt(rowsum((r * r).sum(axis=0)))
         # Breakdown: once the Krylov space of a column is exhausted, beta sits
         # at the f32 orthogonalization noise floor; normalizing r by it feeds

@@ -1,6 +1,6 @@
 """Marginal-likelihood engine: inv_quad + logdet with stochastic gradients.
 
-This is the TPU-native equivalent of GPyTorch's ``inv_quad_logdet`` -- the
+This is the JAX equivalent of GPyTorch's ``inv_quad_logdet`` -- the
 single function behind ``-mll(model(x), y)`` in the reference training loop
 (train_simplexgp.py:41; SURVEY.md section 3.1).  For K_hat = s*K + noise*I:
 
@@ -136,7 +136,7 @@ def build_precond(dk, config, params, ref, n_global: int):
 
     GPyTorch builds its preconditioner from exact kernel entries (LazyTensor
     row evaluation); ours likewise uses dense O(n d) kernel rows -- NOT
-    O(M) one-hot filter MVMs -- so rank 100 costs ~100 cheap VPU rows per
+    O(M) one-hot filter MVMs -- so rank 100 costs ~100 cheap dense rows per
     loss eval.  Works data-sharded (rows of ``ref`` sharded over
     ``config.axis_name``).  Returns None when disabled or rank >= n (dense
     regime: CG converges without help and L would be singular).

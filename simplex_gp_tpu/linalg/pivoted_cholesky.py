@@ -6,19 +6,18 @@ configs/simplexgp.yml; SURVEY.md section 2.4), and corrects the SLQ
 log-determinant with the preconditioner's own log-det.
 
 Pivoted Cholesky needs *columns* of K.  GPyTorch evaluates kernel rows
-exactly (LazyTensor row indexing); the TPU-native equivalent here does the
-same: a column of the (scaled) stationary kernel is ``s * k(||x_i - X||^2)``
--- one O(n d) dense row, MXU/VPU-friendly -- NOT a full O(M) lattice filter
-MVM.  The lattice operator approximates this exact kernel, so the exact
-kernel's pivoted Cholesky preconditions it equally well, at ~1000x lower
-build cost than one-hot filter MVMs (rank 100 at elevators scale: ~100 x
-0.3 ms dense rows vs 100 x 12.5 ms filters).
+exactly (LazyTensor row indexing); this implementation does the same: a
+column of the (scaled) stationary kernel is ``s * k(||x_i - X||^2)`` -- one
+O(n d) dense row -- NOT a full O(M) lattice filter MVM.  The lattice
+operator approximates this exact kernel, so the exact kernel's pivoted
+Cholesky preconditions it equally well, at a small fraction of the build
+cost of one-hot filter MVMs.
 
 The factorization loop is a ``lax.fori_loop`` with static rank
 (data-dependent pivots are traced values; shapes stay static).  With
 ``axis_name`` (inside shard_map over the data axis) the rows of ``ref`` are
 sharded: pivot selection all-gathers one (value, x-row, L-row) candidate per
-shard -- O(shards * (d + rank)) bytes per step over ICI -- and every shard
+shard -- O(shards * (d + rank)) bytes per step -- and every shard
 keeps only its local rows of L.  New capability vs the single-device
 reference (SURVEY.md section 2.7).
 
@@ -46,6 +45,13 @@ __all__ = [
     "woodbury_solve",
     "woodbury_logdet",
 ]
+
+
+def _mm(a, b):
+    """Full-f32 matrix product.  The Gram eigenbasis and the Woodbury applies
+    are accurate to f32 only if their products are: a TF32 product (10
+    mantissa bits) would break the SPD guard's orthonormality bound."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 class PivotedCholesky(NamedTuple):
@@ -215,17 +221,17 @@ def make_preconditioner(
     """
 
     def gram(M):
-        G = M.T @ M
+        G = _mm(M.T, M)
         return jax.lax.psum(G, axis_name) if axis_name is not None else G
 
     s2, V = jnp.linalg.eigh(gram(L))
     s2 = jnp.maximum(s2, 0.0)
     denom = jnp.sqrt(jnp.maximum(s2, 1e-12))
-    U = L @ (V / denom[None, :])  # (n_local, k), ||U_i|| <= 1
+    U = _mm(L, V / denom[None, :])  # (n_local, k), ||U_i|| <= 1
     # One Newton-Schulz orthonormalization pass: U <- U (3I - U^T U) / 2.
     G2 = gram(U)
     k = G2.shape[0]
-    U = U @ (1.5 * jnp.eye(k, dtype=U.dtype) - 0.5 * G2)
+    U = _mm(U, 1.5 * jnp.eye(k, dtype=U.dtype) - 0.5 * G2)
     # Residual defect bound for the SPD guard (k x k eigh, cheap).
     gamma = jnp.maximum(jnp.linalg.eigvalsh(gram(U))[-1], 1.0)
     logdet = jnp.log1p(s2 / noise).sum() + n_global * jnp.log(noise)
@@ -233,7 +239,7 @@ def make_preconditioner(
 
 
 def _ut_v(P: Preconditioner, V: jax.Array, axis_name: Optional[str]) -> jax.Array:
-    utv = P.U.T @ V  # (k, t)
+    utv = _mm(P.U.T, V)  # (k, t)
     if axis_name is not None:
         utv = jax.lax.psum(utv, axis_name)
     return utv
@@ -250,7 +256,7 @@ def precond_solve(
     f32 orthonormality defect (see Preconditioner.gamma).
     """
     w = P.s2 / (P.noise * (P.noise + P.s2)) / P.gamma
-    return V / P.noise - P.U @ (w[:, None] * _ut_v(P, V, axis_name))
+    return V / P.noise - _mm(P.U, w[:, None] * _ut_v(P, V, axis_name))
 
 
 def precond_inv_sqrt(
@@ -263,7 +269,7 @@ def precond_inv_sqrt(
     ``precond_solve``.
     """
     w = (jax.lax.rsqrt(P.noise + P.s2) - jax.lax.rsqrt(P.noise)) / P.gamma
-    return V * jax.lax.rsqrt(P.noise) + P.U @ (w[:, None] * _ut_v(P, V, axis_name))
+    return V * jax.lax.rsqrt(P.noise) + _mm(P.U, w[:, None] * _ut_v(P, V, axis_name))
 
 
 def precond_sqrt(
@@ -283,22 +289,22 @@ def precond_sqrt(
     # inverse -- the quadrature weight identity P^{-1/2}(P^{1/2} z) = z is
     # what makes ||z||^2 the right starting-vector weight.
     w = (jnp.sqrt(P.noise + P.s2) - jnp.sqrt(P.noise)) / P.gamma
-    return V * jnp.sqrt(P.noise) + P.U @ (w[:, None] * _ut_v(P, V, axis_name))
+    return V * jnp.sqrt(P.noise) + _mm(P.U, w[:, None] * _ut_v(P, V, axis_name))
 
 
 def woodbury_solve(L: jax.Array, noise: jax.Array, V: jax.Array) -> jax.Array:
     """(L L^T + noise I)^{-1} V via Woodbury, O(n k^2 + n k t)."""
     k = L.shape[1]
-    inner = noise * jnp.eye(k, dtype=L.dtype) + L.T @ L  # (k, k)
+    inner = noise * jnp.eye(k, dtype=L.dtype) + _mm(L.T, L)  # (k, k)
     chol = jnp.linalg.cholesky(inner)
-    lt_v = L.T @ V
+    lt_v = _mm(L.T, V)
     sol = jax.scipy.linalg.cho_solve((chol, True), lt_v)
-    return (V - L @ sol) / noise
+    return (V - _mm(L, sol)) / noise
 
 
 def woodbury_logdet(L: jax.Array, noise: jax.Array, n: int) -> jax.Array:
     """log|L L^T + noise I| via the matrix determinant lemma."""
     k = L.shape[1]
-    inner = jnp.eye(k, dtype=L.dtype) + (L.T @ L) / noise
+    inner = jnp.eye(k, dtype=L.dtype) + _mm(L.T, L) / noise
     chol = jnp.linalg.cholesky(inner)
     return 2.0 * jnp.log(jnp.diag(chol)).sum() + n * jnp.log(noise)

@@ -1,6 +1,6 @@
 """Mean functions, likelihood, and parameter constraints.
 
-TPU-native equivalents of the GPyTorch pieces the reference composes its
+JAX equivalents of the GPyTorch pieces the reference composes its
 models from (SURVEY.md section 2.4): ConstantMean, ScaleKernel outputscale,
 ARD lengthscales, GaussianLikelihood with a GreaterThan(min_noise) constraint
 (train_simplexgp.py:15-21).  Everything is functional: raw (unconstrained)

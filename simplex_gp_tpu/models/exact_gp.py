@@ -1,6 +1,6 @@
 """Exact-GP models: lattice-accelerated (Simplex-GP) and dense baselines.
 
-The TPU-native equivalent of the reference's model stack
+The JAX equivalent of the reference's model stack
 (experiments/train_simplexgp.py:13-26):
 
     ConstantMean + ScaleKernel(RBFLattice/MaternLattice, ard_num_dims=d)
@@ -33,6 +33,12 @@ from ..ops.lattice import apply_plan
 from .components import constrain, init_raw_params
 
 __all__ = ["SimplexGP", "DenseGP"]
+
+
+def _mm(a, b):
+    """Full-f32 matrix product: these products feed solver and gold paths
+    whose accuracy a TF32 product (10 mantissa bits) would spoil."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _rademacher(key, shape):
@@ -154,9 +160,9 @@ class SimplexGP:
 
         Same algorithm as ``jax.value_and_grad(self.nlml)`` with
         slq_mode="cg"/stop_mode="mean", but the CG loop runs on the host over
-        one small jitted iteration: at very large n the fused while-loop
-        graph exceeds what the TPU compile stack reliably handles (observed
-        at houseelectric scale), while every piece compiles and runs fine.
+        one small jitted iteration, so every compiled piece is small.  Kept
+        for very large n; whether the fused graph needs it on the GPU is
+        unverified (see linalg/host_loop.py).
         """
         import numpy as np
 
@@ -219,11 +225,11 @@ class SimplexGP:
         m = min(root_rank or self.bbmm.max_lanczos_iterations, n)
         omega = jax.random.normal(key, (n, m), jnp.float32)
         Q, _ = jnp.linalg.qr(_host_mv_wide(plan, s, noise, self.dk.coeffs, omega))
-        T = Q.T @ _host_mv_wide(plan, s, noise, self.dk.coeffs, Q)
+        T = _mm(Q.T, _host_mv_wide(plan, s, noise, self.dk.coeffs, Q))
         T = 0.5 * (T + T.T)
         evals, evecs = jnp.linalg.eigh(T)
         evals = jnp.maximum(evals, 1e-8)
-        root_inv = Q @ (evecs / jnp.sqrt(evals)[None, :])
+        root_inv = _mm(Q, evecs / jnp.sqrt(evals)[None, :])
         return {
             "alpha": alpha,
             "root_inv": root_inv,
@@ -295,11 +301,11 @@ class SimplexGP:
         (train_simplexgp.py:67): a rank-m root Khat ~= Q T Q^T, inverted as
         Khat^{-1} ~= (Q U L^{-1/2}) (Q U L^{-1/2})^T.
 
-        TPU-native root construction: GPyTorch runs m SEQUENTIAL Lanczos
+        Root construction: GPyTorch runs m SEQUENTIAL Lanczos
         steps from one probe; here the basis is a zero-power-iteration
         randomized rangefinder (Halko-Martinsson-Tropp's basic scheme) --
         Y = Khat @ Omega, Q = qr(Y), T = Q^T (Khat @ Q) -- i.e. TWO batched
-        m-column filter MVMs on the MXU instead of m dependent single-column
+        m-column filter MVMs instead of m dependent single-column
         ones, and a measurably richer rank-m subspace than a single-probe
         Krylov basis (validated against the dense lattice posterior in
         tests/test_snelson.py).  The second MVM forms T, it does not
@@ -339,11 +345,11 @@ class SimplexGP:
         kmv = make_wide_filter_any(ref, self.dk, capacity=self.bbmm.plan_capacity)
         mv_wide = lambda V: s * kmv(V) + noise * V
         Q, _ = jnp.linalg.qr(mv_wide(omega))  # (n, m) orthonormal range sketch
-        T = Q.T @ mv_wide(Q)
+        T = _mm(Q.T, mv_wide(Q))
         T = 0.5 * (T + T.T)
         evals, evecs = jnp.linalg.eigh(T)
         evals = jnp.maximum(evals, 1e-8)
-        root_inv = Q @ (evecs / jnp.sqrt(evals)[None, :])  # (n, m)
+        root_inv = _mm(Q, evecs / jnp.sqrt(evals)[None, :])  # (n, m)
         return {"alpha": alpha, "root_inv": root_inv, "params": params}
 
     @functools.partial(jax.jit, static_argnums=(0,))
@@ -356,7 +362,7 @@ class SimplexGP:
         costs a single join-plan build + apply (the reference's eval
         likewise reuses its training caches under fast_pred_var,
         train_simplexgp.py:63-71; rebuilding the posterior per predict call
-        was the r3 42-47 s/eval pathology).
+        made every eval pay a full solve).
         """
         params = cache["params"]
         ref = x * params["inv_ell"]
@@ -411,8 +417,9 @@ class DenseGP:
         r1 = x1 * params["inv_ell"]
         r2 = x2 * params["inv_ell"]
         # Matmul-form squared distances: the (a, b, d) broadcast temp OOMs at
-        # (62k, 8k, d) eval shapes, and the inner product rides the MXU.
-        d2 = (r1 * r1).sum(-1)[:, None] + (r2 * r2).sum(-1)[None, :] - 2.0 * (r1 @ r2.T)
+        # (62k, 8k, d) eval shapes.  The form cancels badly, so the inner
+        # product runs in full f32 (never TF32) for this dense gold.
+        d2 = (r1 * r1).sum(-1)[:, None] + (r2 * r2).sum(-1)[None, :] - 2.0 * _mm(r1, r2.T)
         d2 = jnp.maximum(d2, 0.0)
         if self.kernel == "rbf":
             k = jnp.exp(-d2)
@@ -449,9 +456,9 @@ class DenseGP:
         The train-side Cholesky is O(n^2) memory regardless, but the
         cross-covariance is streamed in ``block``-row chunks so large
         val/test sets (precipitation: 62k rows) never materialize an
-        (n_test, n) f32 matrix plus its solve temps at once.  Block 4096:
-        the TPU triangular solve materializes ~(n, block) HLO temps several
-        times over -- block 16384 at train n=16384 OOMed a 16 GB v5e.
+        (n_test, n) f32 matrix plus its solve temps at once.  The triangular
+        solve materializes ~(n, block) temps several times over; the block
+        size is untuned on the H100.
         """
         params = self.constrained(raw)
         n = x.shape[0]
@@ -462,7 +469,7 @@ class DenseGP:
         means, vars = [], []
         for i in range(0, x_test.shape[0], block):
             Kst = self._kmat(params, x_test[i : i + block], x)
-            means.append(Kst @ a + params["mean"])
+            means.append(_mm(Kst, a) + params["mean"])
             v = jax.scipy.linalg.solve_triangular(L, Kst.T, lower=True)
             vars.append(params["outputscale"] + params["noise"] - (v * v).sum(axis=0))
         mean = jnp.concatenate(means) if len(means) > 1 else means[0]

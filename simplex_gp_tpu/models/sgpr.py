@@ -10,8 +10,8 @@ standard equivalent-quality formulation is Titsias' collapsed variational
 bound, which is what we implement -- O(n m^2) time, O(n m) memory, exact in
 the m -> n limit.
 
-TPU notes: everything is tall-skinny (n, m) matmuls and m x m Cholesky --
-pure MXU work, no lattice involved.
+Everything is tall-skinny (n, m) matmuls and m x m Cholesky; no lattice is
+involved.
 """
 
 from __future__ import annotations
@@ -51,8 +51,11 @@ class SGPR:
     def _k(self, params, x1, x2):
         r1 = x1 * params["inv_ell"]
         r2 = x2 * params["inv_ell"]
-        # Matmul-form squared distances (no (a, b, d) broadcast temp; MXU).
-        d2 = (r1 * r1).sum(-1)[:, None] + (r2 * r2).sum(-1)[None, :] - 2.0 * (r1 @ r2.T)
+        # Matmul-form squared distances (no (a, b, d) broadcast temp).  The
+        # form cancels badly, so the inner product runs in full f32, never TF32.
+        d2 = (r1 * r1).sum(-1)[:, None] + (r2 * r2).sum(-1)[None, :] - 2.0 * jnp.matmul(
+            r1, r2.T, precision=jax.lax.Precision.HIGHEST
+        )
         d2 = jnp.maximum(d2, 0.0)
         if self.kernel == "rbf":
             k = jnp.exp(-d2)

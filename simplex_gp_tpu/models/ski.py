@@ -7,13 +7,12 @@ KISS-GP kernel (cubic interpolation onto a regular grid, Toeplitz structure)
 whose d factors are multiplied elementwise, with MVMs done by iterated
 Hadamard products (SKIP, Gardner et al. 2018).
 
-TPU-native formulation implemented here:
+Formulation implemented here:
 
   * per-dimension 1-D grid kernel: W_j K_j W_j^T with W_j the sparse cubic
     interpolation matrix (n x g) and K_j the 1-D stationary kernel on a
     regular grid.  K_j is Toeplitz; its MVM is computed densely (g x g) since
-    grid sizes are ~100 (a g log g FFT path is unnecessary at this size and
-    dense g x g matmuls are MXU-friendly);
+    grid sizes are ~100 (a g log g FFT path is unnecessary at this size);
   * product structure: K = prod_j (W_j K_j W_j^T) elementwise.  Exact
     elementwise-product MVMs are exponential in d, so (like SKIP's rank-r
     Lanczos factorization) each factor is truncated to rank r via its grid

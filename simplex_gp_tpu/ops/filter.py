@@ -47,17 +47,16 @@ __all__ = [
 ]
 
 # Chain-plan transition sorts carry EVERY value column as a sort operand,
-# and TPU variadic-sort compile time grows ~quadratically with operand
-# count (a 100-column rect filter at eval time compiled for > 25 min).
-# Above this width the gather-join engine (column-count-independent) wins
-# on both compile and run time.
+# so their compile and run time grow with the column count.  Above this
+# width the gather-join engine (column-count-independent) is used.  The
+# value is untuned on the H100.
 _WIDE_COLS = 16
 
 # The join engine materializes (table_rows, c) arrays (segment_sum output,
 # blurred table, (n, d+1, c) slice gather); above this many n*(d+1) rows a
 # wide filter instead builds ONE chain plan and lax.maps over 8-column
 # chunks -- bounded memory at any n (the houseelectric eval regime, where
-# a c=100 join table would be ~6-8 GB).
+# a c=100 join table would be ~6-8 GB).  Untuned on the H100.
 _JOIN_MAX_ROWS = 4 * 1024 * 1024
 _WIDE_CHUNK = 8
 
@@ -124,8 +123,8 @@ def _filter_plain(
     """One filter application, engine chosen by value width (static).
 
     Narrow values use the fused one-shot engine (ops/lattice.py
-    filter_fused: 25-40% faster than build+apply for single-shot use, and
-    its plain-autodiff gradients match the plan path --
+    filter_fused: fewer sort passes than build+apply for single-shot use,
+    and its plain-autodiff gradients match the plan path --
     tests/test_chain_plan.py::test_fused_grad_matches_plan_path).  These
     one-shot callers are the custom-vjp backward's u^T dK v evaluation and
     the rectangular prediction MVM; the CG/SLQ forward reuses ONE prebuilt

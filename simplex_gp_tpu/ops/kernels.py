@@ -144,7 +144,7 @@ class MixtureKernel:
     and filtering each component with the plain RBF lattice at scaled
     positions ``ref * alpha_j`` replaces the matern tap profile's
     discretization error with the (much smaller) RBF floor per component.
-    Measured on elevators-geometry d=18 (experiments/matern_mixture_proto.py):
+    Measured on elevators-geometry d=18 (analysis/QUALITY_GAP.md):
     matern nu=1.5 taps rel_err 0.178 at n=2048 vs 0.105 for the mixture --
     and 0.467 at n=16599 for the reference-parity taps (BASELINE.md:22 shows
     the reference's own filter has the same profile).  This is an accuracy
@@ -239,10 +239,12 @@ def fit_mixture_weights_subset(
     ref = np.asarray(ref)
     idx = rng.permutation(ref.shape[0])[: min(m, ref.shape[0])]
     rs = ref[idx]
+    # Matmul-form squared distances cancel badly in f32: form them in f64.
+    r64 = rs.astype(np.float64)
     d2 = (
-        (rs * rs).sum(-1)[:, None]
-        + (rs * rs).sum(-1)[None, :]
-        - 2.0 * (rs @ rs.T)
+        (r64 * r64).sum(-1)[:, None]
+        + (r64 * r64).sum(-1)[None, :]
+        - 2.0 * (r64 @ r64.T)
     )
     d2 = np.maximum(d2, 0.0)
     target = np.asarray(_matern(d2, mk.nu))

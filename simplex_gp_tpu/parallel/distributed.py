@@ -6,14 +6,14 @@ first-class capability of this framework (SURVEY.md section 7, build step 8).
 
 JAX's multi-controller model: every host runs THE SAME program under
 ``jax.distributed.initialize``; ``jax.devices()`` then spans all hosts, and
-a ``Mesh`` over it makes shard_map/pjit collectives ride ICI within a host
-(slice) and DCN across slices -- the runtime inserts the hierarchy, code is
-unchanged.  Everything in ``parallel/`` (shard_filter, data_parallel_loss_fn)
-works on such a global mesh as-is: the per-MVM ``psum`` of the lattice table
+a ``Mesh`` over it makes shard_map/pjit collectives span hosts -- the
+runtime picks the transport, code is unchanged.  Everything in
+``parallel/`` (shard_filter, data_parallel_loss_fn) works on such a global
+mesh as-is: the per-MVM ``psum`` of the lattice table
 and the all_gather of vertex hashes are mesh-topology-agnostic.
 
-Env-var autodetection covers the common launchers (GKE/Cloud TPU pods set
-everything; SLURM/OpenMPI are handled by jax.distributed itself).
+Multi-process runs are opt-in: explicit arguments, the ``JAX_*`` env vars
+below, or a SLURM/OpenMPI launcher (handled by jax.distributed itself).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def initialize_distributed(
     """Join the multi-host process group (idempotent).
 
     With no arguments, relies on jax.distributed's launcher autodetection
-    (Cloud TPU metadata, SLURM, OpenMPI) plus the standard env vars
+    (SLURM, OpenMPI) plus the standard env vars
     ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``.
     Returns True if a multi-process group was (or already is) active, False
     for plain single-process runs (no coordinator configured) -- callers can
@@ -86,8 +86,7 @@ def is_distributed() -> bool:
 
 
 def global_mesh(axis_name: str = "data") -> Mesh:
-    """1-D mesh over ALL devices across ALL hosts, in default device order
-    (JAX orders devices so neighbors share ICI before DCN)."""
+    """1-D mesh over ALL devices across ALL hosts, in default device order."""
     return Mesh(np.array(jax.devices()), (axis_name,))
 
 

@@ -1,7 +1,7 @@
 """Data-sharded lattice filter: explicit shard_map building blocks.
 
 The reference is single-device (SURVEY.md section 2.7); this module is the
-TPU-native multi-chip formulation of the permutohedral filter.  Sharding
+multi-device formulation of the permutohedral filter.  Sharding
 model over a 1-D mesh axis (default ``"data"``):
 
   * every shard holds n_loc = n / P input points; geometry (elevate / round /
@@ -19,8 +19,8 @@ Communication per MVM: one psum of the (M, c) table.  Per plan build: one
 all_gather of 12 bytes/vertex.  CG / Lanczos / NLML reductions take the same
 ``axis_name`` (linalg/cg.py, linalg/lanczos.py, linalg/mll.py).
 
-Engines: the sort-chain plan (ops/lattice.py, the fast TPU path) is the
-default; ``build_plan_sharded_join`` keeps the gather-based join engine for
+Engines: the sort-chain plan (ops/lattice.py) is the default;
+``build_plan_sharded_join`` keeps the gather-based join engine for
 differential testing and wide value matrices.
 """
 

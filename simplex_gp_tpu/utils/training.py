@@ -1,6 +1,6 @@
 """Training loop utilities: Adam fitting, early stopping, seeding.
 
-TPU-native equivalents of the reference's experiment scaffolding:
+JAX equivalents of the reference's experiment scaffolding:
 Adam NLML loop (train_simplexgp.py:29-57,120-125), EarlyStopper
 (experiments/utils.py:170-199), set_seeds (experiments/utils.py:13-18).
 The update step is one jitted function; per-epoch wall times are recorded

@@ -2,7 +2,7 @@
 
 The join plan (build_plan_join/apply_plan_join) is itself validated against
 dense O(n^2) kernels and the native C++ golden model (test_lattice.py,
-test_cpu_ref.py); here the chain engine -- the production TPU path -- is held
+test_cpu_ref.py); here the chain engine -- the production path -- is held
 to the join engine at float precision on the same (src, ref, coeffs), across
 dimensions, orders, and kernels, plus property checks of its own.
 """

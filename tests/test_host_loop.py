@@ -1,7 +1,8 @@
 """Host-orchestrated BBMM engine (linalg/host_loop.py) vs the fused engine.
 
-The host loop exists because the fused while-loop NLML graph exceeds what
-the TPU compile stack reliably handles at houseelectric scale; numerically
+The host loop exists because the fused while-loop NLML graph was too large
+to compile reliably at houseelectric scale on the toolchain the framework
+was first built on (unverified on the H100); numerically
 it must be the SAME algorithm (CG-tridiag SLQ, mean stopping, closed-form
 backward), so values and gradients are pinned against the jitted engine on
 shared probes.

@@ -2,7 +2,7 @@
 
 The reference evaluates under GPyTorch's ``fast_pred_var`` (LOVE,
 train_simplexgp.py:67), which approximates the posterior covariance from a
-rank-m root decomposition of Khat.  Our TPU-native equivalent
+rank-m root decomposition of Khat.  Our equivalent
 (models/exact_gp.py posterior_cache) builds the rank-m root from a randomized
 range sketch.  These tests pin its quality:
 

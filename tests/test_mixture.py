@@ -4,7 +4,7 @@ The mixture mode is an accuracy capability BEYOND the reference: matern is a
 scale mixture of Gaussians, the permutohedral filter is most accurate for
 Gaussians, so J RBF-lattice components with nonnegative subset-fit weights
 beat the matern tap filter's discretization error (reference parity profile:
-analysis/MATERN.md; measurements: experiments/matern_mixture_proto.py).
+analysis/MATERN.md; measurements: analysis/QUALITY_GAP.md).
 """
 
 import numpy as np

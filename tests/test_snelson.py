@@ -1,6 +1,6 @@
 """End-to-end Snelson 1-D parity test -- the canonical verification.
 
-TPU-native mirror of the reference's `tests/train_snelson.py` (documented as
+JAX mirror of the reference's `tests/train_snelson.py` (documented as
 THE verification at README.md:97-105): train a Simplex-GP (RBF lattice,
 order=1) and a dense exact GP for 100 Adam epochs at lr=0.1 on the raw
 Snelson data and assert the final train MLLs agree within 0.1

@@ -1,65 +1,32 @@
-"""Unit tests for the hardened timing utilities (bench robustness layer)."""
+"""Unit tests for the wall-clock timing helper."""
 
 import jax.numpy as jnp
-import numpy as np
-import pytest
 
 from simplex_gp_tpu.utils import timing
 
 
-def test_with_retries_retries_transient(monkeypatch):
-    monkeypatch.setattr(timing.time, "sleep", lambda s: None)
+def test_time_call_counts_warmup_and_reps():
     calls = {"n": 0}
 
-    def flaky():
+    def f(x):
         calls["n"] += 1
-        if calls["n"] < 3:
-            raise RuntimeError("FAILED_PRECONDITION: TPU backend error")
-        return 42
+        return x + 1.0
 
-    assert timing.with_retries(flaky, deadline_s=60.0) == 42
-    assert calls["n"] == 3
-
-
-def test_with_retries_raises_non_transient():
-    def bug():
-        raise ValueError("shape mismatch")
-
-    with pytest.raises(ValueError):
-        timing.with_retries(bug, deadline_s=60.0)
+    t = timing.time_call(f, jnp.zeros((3,)), reps=4, warmup=2)
+    assert t >= 0.0
+    assert calls["n"] == 6
 
 
-def test_with_retries_respects_deadline(monkeypatch):
-    monkeypatch.setattr(timing.time, "sleep", lambda s: None)
-    clock = {"t": 0.0}
+def test_time_call_returns_median(monkeypatch):
+    # Fake clock: rep k takes k+1 seconds (reps 1, 2, 3, 10, 5 s).
+    durations = iter([1.0, 2.0, 3.0, 10.0, 5.0])
+    clock = {"t": 0.0, "start": True}
 
-    def mono():
-        clock["t"] += 100.0
+    def fake_perf_counter():
+        if not clock["start"]:
+            clock["t"] += next(durations)
+        clock["start"] = not clock["start"]
         return clock["t"]
 
-    monkeypatch.setattr(timing.time, "monotonic", mono)
-
-    def always():
-        raise RuntimeError("UNAVAILABLE: tunnel down")
-
-    with pytest.raises(RuntimeError):
-        timing.with_retries(always, deadline_s=150.0)
-
-
-def test_sync_time_chained_counts_applications():
-    # step increments a counter carry `chain` times; timing must be finite
-    # and the loop must actually run all applications.
-    def step(i, carry):
-        return carry + 1.0
-
-    t = timing.sync_time_chained(step, jnp.zeros(()), chain=8, reps=2)
-    assert t > 0
-    import jax
-
-    out = jax.lax.fori_loop(0, 8, step, jnp.zeros(()))
-    assert float(out) == 8.0
-
-
-def test_device_sync_touches_all_leaves():
-    timing.device_sync({"a": jnp.ones((3,)), "b": (jnp.zeros((2, 2)),)})
-    assert timing.sync_floor(reps=3) >= 0.0
+    monkeypatch.setattr(timing.time, "perf_counter", fake_perf_counter)
+    assert timing.time_call(lambda x: x, jnp.ones((2,)), reps=5) == 3.0
